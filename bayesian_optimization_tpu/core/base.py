@@ -12,7 +12,7 @@ Capability parity with the reference's two base classes:
   NaN/inf row dropping, flat-fitness guard, fixed-variable asks, dill
   save/load checkpointing.
 
-TPU-first design differences:
+Design differences:
 - the search space is compiled once into a `SpaceEncoding`; the surrogate
   fits on the masked continuous embedding and the acquisition argmax is one
   jitted population program per ask (optim/argmax.py) instead of scipy/CMA

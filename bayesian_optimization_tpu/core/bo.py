@@ -12,7 +12,7 @@ Capability parity with the reference's optimizer classes
 - `NoisyBO` — plugin from model *predictions*, duplicates allowed
   (bayes_opt.py:177-194).
 
-TPU-first design: the q sampled criteria become a leading batch axis of ONE
+Accelerator design: the q sampled criteria become a leading batch axis of ONE
 jitted argmax program — q criteria x chains x generations all advance
 together — rather than the reference's joblib process pool over restarts.
 """

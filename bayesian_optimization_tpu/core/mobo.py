@@ -10,7 +10,7 @@ point 0.8 * min (mobo.py:59-63), hypervolume logged at every tell
 q-replicated space (mobo.py:212-235), and `ask(q>1)` on plain MOBO raising
 NotImplementedError (asserted by the reference tests).
 
-TPU-first: EHVI evaluates whole candidate populations inside the fused
+Accelerator design: EHVI evaluates whole candidate populations inside the fused
 jitted argmax (ops/ehvi.py) instead of the reference's one-point
 numpy->torch bridge; hypercells are padded to buckets so refits reuse
 compiled programs.

@@ -5,7 +5,7 @@ Capability parity with the reference's `Solution` ndarray subclass
 fitness / n_eval / index metadata that slice together, concatenation `+`,
 replication `*`, `unique`, dict/CSV codecs, and tabulate pretty-printing.
 
-TPU-first design difference: the reference subclasses `np.ndarray` with
+Design difference: the reference subclasses `np.ndarray` with
 attribute write-through via `__array_finalize__`; here the store is a plain
 struct-of-arrays (decision values as an object ndarray; fitness/n_eval/index
 as numeric arrays). Basic slicing returns views so metadata updates

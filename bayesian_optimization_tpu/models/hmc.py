@@ -1,9 +1,9 @@
 """Vectorized adaptive HMC over GP hyperparameters.
 
-This is the BASELINE.json north star: replace point-estimate MLE restarts
+This is the project's north star: replace point-estimate MLE restarts
 with a *posterior* over GP hyperparameters, fit by gradient-based MCMC whose
 chains advance as one batched XLA program (every leapfrog step = one batched
-Cholesky on the MXU across all chains), sharded over the `particles` mesh
+Cholesky across all chains), sharded over the `particles` mesh
 axis on multi-chip systems.
 
 Algorithm: Hamiltonian Monte Carlo with
@@ -320,7 +320,7 @@ def fit_vi(
 # progressive multinomial within a subtree and biased-progressive across
 # doublings (Betancourt 2017). Everything is fixed-shape: one transition is
 # bounded by 2^max_depth leapfrog steps, chains advance together under vmap
-# (each doubling is a batched Cholesky on the MXU through the GP likelihood).
+# (each doubling is a batched Cholesky through the GP likelihood).
 # ---------------------------------------------------------------------------
 
 

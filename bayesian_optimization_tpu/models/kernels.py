@@ -1,4 +1,4 @@
-"""Stationary GP correlation kernels, batched and MXU-friendly.
+"""Stationary GP correlation kernels, batched and matmul-based.
 
 Capability parity with the reference's functional kernels
 (ref: bayes_optim/surrogate/gaussian_process/kernel.py:159-466): matern
@@ -6,11 +6,11 @@ Capability parity with the reference's functional kernels
 generalized_exponential, cubic, pure_nugget — all with anisotropic
 length-scale weights `theta` acting on componentwise distances.
 
-TPU-first design: the reference materializes the (n*(n-1)/2, dim) pairwise
+Accelerator design: the reference materializes the (n*(n-1)/2, dim) pairwise
 |dx| table once and loops kernels over it with numpy (ref: gpr.py:21-61,
-772-782). Here the weighted squared distance is computed as one MXU matmul
+772-782). Here the weighted squared distance is computed as one matmul
 via the expansion  r2 = |Xs|^2 + |Ys|^2 - 2 Xs Ys^T  with Xs = X*sqrt(theta)
-(O(n^2 d) on the systolic array, no (n,n,d) tensor in HBM), and every kernel
+(O(n^2 d), no (n,n,d) tensor in device memory), and every kernel
 is a jittable function of `theta` so likelihood evaluations vmap over whole
 batches of hyperparameter vectors. Gradients w.r.t. theta and x come from
 autodiff; the reference's hand-written corr_dx/corr_grad_theta
@@ -40,8 +40,9 @@ def weighted_sq_dist(theta: jnp.ndarray, X: jnp.ndarray, Y: Optional[jnp.ndarray
     Ys = Xs if symmetric else Y * sq
     xx = jnp.sum(Xs * Xs, axis=-1)
     yy = xx if symmetric else jnp.sum(Ys * Ys, axis=-1)
-    # HIGHEST precision: TPU matmuls default to bf16 passes, which is far too
-    # coarse for kernel distances (relative error ~1e-3 corrupts gradients)
+    # HIGHEST precision: a GPU's default float32 matmul may run in TF32
+    # (10 mantissa bits), far too coarse for kernel distances (relative
+    # error ~1e-3 corrupts gradients)
     r2 = xx[:, None] + yy[None, :] - 2.0 * jnp.dot(
         Xs, Ys.T, preferred_element_type=Xs.dtype, precision=jax.lax.Precision.HIGHEST
     )

@@ -14,10 +14,11 @@ Numerical parity with the reference's likelihood machinery
 All parameters arrive in log10 space, exactly like the reference's MLE
 driver (gpr.py:1089-1110).
 
-TPU-first design: one jittable `neg_log_likelihood(log10_par, data)` whose
-gradient is autodiff (the reference hand-codes kernel/likelihood gradients);
-it vmaps over a *batch* of hyperparameter vectors so multi-restart MLE and
-HMC evaluate many candidates per Cholesky-batch on the MXU. Variable n is
+Accelerator design: one jittable `neg_log_likelihood(log10_par, data)`
+whose gradient is autodiff (the reference hand-codes kernel/likelihood
+gradients); it vmaps over a *batch* of hyperparameter vectors so
+multi-restart MLE and HMC evaluate many candidates per Cholesky batch.
+Variable n is
 handled by bucketed padding with a mask: padded rows/cols of R are identity,
 padded y/F rows are zero, so Cholesky/QR/triangular solves stay fixed-shape
 with zero contribution from padding.
@@ -31,7 +32,7 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-from ..ops.linalg import chol_and_inv, chol_inv_whiten, whiten
+from ..ops.linalg import chol_inv_whiten, whiten
 from .kernels import kernel_fn
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -115,12 +116,9 @@ class AuxState(NamedTuple):
 def _aux(R, Y, F, beta0, config: GPConfig) -> AuxState:
     """Cholesky + whitened GLS (ref parity: gpr.py:790-811).
 
-    Uses the compact GEMM-pyramid Cholesky (ops/linalg.py) instead of
-    jnp.linalg.cholesky + solve_triangular: XLA's expanders generate ~7-17 MB
-    of TPU code per call site, which made the fused fit program ~200 MB;
-    chol_and_inv is O(1) code, its explicit L^-1 turns every whitening solve
-    into a matmul, and its custom VJP is GEMM-only."""
-    hi = jax.lax.Precision.HIGHEST  # bf16 matmul passes corrupt the GLS fit
+    Uses the blocked Cholesky of ops/linalg.py: its explicit L^-1 turns
+    every whitening solve into a matmul, and its custom VJP is GEMM-only."""
+    hi = jax.lax.Precision.HIGHEST  # TF32 matmul passes corrupt the GLS fit
     m = Y.shape[1]
     L, L_inv, W, min_pivot = chol_inv_whiten(R, jnp.concatenate([Y, F], axis=1))
     Yt = W[:, :m]
@@ -177,7 +175,7 @@ def _masked_logdet_d(d, mask):
 def _aux_nll(R, Y, F, mask, beta0, config: GPConfig):
     """Whitened GLS for the LIKELIHOOD only: no L matrices escape, so the
     factor+solve runs through ops/linalg.whiten — one compact blocked
-    program per eval instead of XLA's multi-MB cholesky/solve expansions.
+    program per eval.
     Returns (logdet_L, Ft, G, beta, rho, min_pivot)."""
     hi = jax.lax.Precision.HIGHEST
     m = Y.shape[1]
@@ -273,9 +271,8 @@ class PosteriorState(NamedTuple):
     theta: jnp.ndarray
     L: jnp.ndarray
     L_inv: jnp.ndarray     # (n_pad, n_pad): explicit L^-1 so per-query MSE is
-                           # a GEMM on the MXU instead of a triangular solve
-                           # (solves are an O(n)-deep dependency chain on TPU —
-                           # they dominated acquisition-argmax latency)
+                           # a GEMM instead of a triangular solve (an O(n)-deep
+                           # dependency chain per acquisition evaluation)
     Ft: jnp.ndarray
     G: jnp.ndarray
     G_inv: jnp.ndarray     # (p, p): explicit G^-1 — the p x p triangular-solve
@@ -332,7 +329,7 @@ def predict(
     latent process (no observation noise), clipped at 0.
     """
     kern = kernel_fn(config.kernel)
-    hi = jax.lax.Precision.HIGHEST  # bf16 matmul passes corrupt posteriors
+    hi = jax.lax.Precision.HIGHEST  # TF32 matmul passes corrupt posteriors
     r0 = kern(state.theta, Xq, state.X) * state.mask[None, :]  # (Nq, n_pad)
     mu = jnp.dot(Fq, state.beta, precision=hi) + jnp.dot(r0, state.gamma, precision=hi)
     if not eval_mse:

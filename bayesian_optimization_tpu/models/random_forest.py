@@ -6,7 +6,7 @@ one-hot encoding of categorical levels, empirical MSE = variance of
 per-tree predictions, and `SurrogateAggregation` (weighted-sum blending of
 surrogates for multi-objective scalarization, :19-53).
 
-TPU-first design: the reference calls sklearn's Python predict per point
+Accelerator design: the reference calls sklearn's Python predict per point
 inside the acquisition loop. Here the fitted forest is flattened into
 padded node arrays (feature, threshold, children, value) and traversal runs
 as a jittable gather program — (n_points, n_trees) traversals advance in

@@ -5,7 +5,7 @@ Capability parity with the reference's acquisition layer
 epsilon-PI, and MGFI with the t <= 22.36 overflow clamp, all for
 minimization with an improvement plugin (best observed value).
 
-TPU-first design difference: the reference's criteria are objects that call
+Design difference: the reference's criteria are objects that call
 `model.predict` one candidate at a time inside scipy/CMA loops
 (acquisition_fun.py:127-310); here each criterion is a pure function of
 batched posterior moments `(mu[N], sd[N]) -> value[N]`, so an entire

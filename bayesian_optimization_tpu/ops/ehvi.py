@@ -31,7 +31,7 @@ _SIGMA_FLOOR = 1e-9
 # golden at q=2 is 11% @ S=16, 6.8% @ 64, 2.7% @ 256, 1.0% @ 1024; q=8 is
 # EASIER (errors average over candidates): 2.6% @ 64, 0.8% @ 256. S=256
 # keeps the q=2 error under ~3% at 4x the samples (cells x subsets x S
-# stays one fused einsum on the MXU).
+# stays one fused einsum).
 QEHVI_N_SAMPLES = int(__import__("os").environ.get("BOTPU_QEHVI_SAMPLES", "256"))
 
 

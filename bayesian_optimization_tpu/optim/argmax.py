@@ -9,12 +9,12 @@ constraint handling and best-of-restarts selection. Budget defaults mirror
 acquisition/optim/option.py:5-12 (BFGS ~100*dim evals, ES ~1000*dim evals,
 n_restart = 5*dim).
 
-TPU-first design: the reference runs restarts sequentially, each calling the
+Accelerator design: the reference runs restarts sequentially, each calling the
 GP predict one point at a time (SURVEY section 3.2 — the primary wall-clock
 sink). Here the *entire* argmax — criterion evaluation through the fused GP
 posterior, all restarts/chains, all generations — is ONE jitted XLA program:
 restarts are a leading batch axis, every generation is a single batched
-Cholesky-solve + acquisition on the MXU, and the final argmax is a reduce.
+Cholesky-solve + acquisition, and the final argmax is a reduce.
 Everything operates on the unit-cube representation of the space
 (space/encoding.py); mixed variables ride along via quantized embedding.
 """

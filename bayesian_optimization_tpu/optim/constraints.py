@@ -7,7 +7,7 @@ a user's black-box ``h``/``g`` callables are compiled once into *batched*
 evaluators over the unit cube so the penalty rides inside the single jitted
 argmax program.
 
-TPU-first design: the reference re-evaluates the penalty point-by-point on
+Accelerator design: the reference re-evaluates the penalty point-by-point on
 the host and finite-differences its gradient for BFGS. Here constraints are
 traced into the XLA program whenever the user's callable is jax-traceable
 (then the penalty gradient is exact via autodiff, batched over the whole

@@ -12,7 +12,7 @@ flip-probability mutation clipped to [1/(3 N_d), 1/2] (mies.py:264-274);
 dominant recombination for x, intermediate for strategy parameters
 (mies.py:175-185); (mu, lambda) selection with optional elitism.
 
-TPU-first design: the reference mutates one individual at a time in Python
+Accelerator design: the reference mutates one individual at a time in Python
 (mies.py:320-344, the file even asks to "compile it with cython"). Here R
 independent restarts x lambda offspring form a single (R, lambda, dim)
 array program on the unit-cube representation of the space: one fused

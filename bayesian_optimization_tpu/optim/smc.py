@@ -1,4 +1,4 @@
-"""SMC-resampling population argmax (the BASELINE.json north star's
+"""SMC-resampling population argmax (the project north star's
 "SMC-style loop ... acquisition candidates sharded as particles ... with
 resampling").
 
@@ -16,7 +16,7 @@ near-greedy across rounds, the standard SMC tempering ladder.
 
 Everything is one jitted program: the resampling gather is a global
 permutation of the particle axis, which under a sharded `particles` mesh
-axis XLA lowers to the ICI collective the north star describes.
+axis XLA lowers to a cross-device collective.
 """
 from __future__ import annotations
 

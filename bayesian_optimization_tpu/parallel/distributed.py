@@ -1,6 +1,6 @@
 """Multi-host initialization and sharded-population helpers.
 
-TPU-native equivalent of the reference's only cross-process machinery — the
+The counterpart of the reference's only cross-process machinery — the
 mpi4py rank fan-out in benchmark/run_mpi.py:87-116 — plus what it never had:
 sharding a single optimization's populations across chips.
 
@@ -25,7 +25,7 @@ def initialize(
 ) -> bool:
     """Initialize jax.distributed when running multi-host; no-op (False)
     for single-process runs."""
-    num = num_processes if num_processes is not None else int(os.environ.get("BO_TPU_WORLD", "1"))
+    num = num_processes if num_processes is not None else int(os.environ.get("BO_WORLD", "1"))
     if num <= 1 and coordinator_address is None:
         return False
     jax.distributed.initialize(
@@ -37,8 +37,9 @@ def initialize(
 
 
 def population_mesh():
-    """Particles mesh over all global devices (ICI within a slice, DCN
-    across slices — XLA routes the collectives)."""
+    """Particles mesh over all global devices (XLA routes the collectives
+    through NCCL: NVLink between the cards of a host, the network between
+    hosts)."""
     return make_particle_mesh(devices=jax.devices())
 
 

@@ -2,11 +2,13 @@
 
 The reference's only parallelism is joblib process pools and an
 embarrassingly-parallel MPI fan-out (ref: bayes_optim/_base.py:110-121,
-benchmark/run_mpi.py:87-116). The TPU-native equivalent: a 1-D `particles`
-mesh axis over which every population axis in the framework — GP MLE
-restarts, HMC chains, CMA-ES/MIES chains, acquisition candidates, SMC
-particles — is sharded with `NamedSharding`; XLA inserts the ICI
-collectives (all-reduce argmax/argmin) at the reduction points.
+benchmark/run_mpi.py:87-116). Here: a 1-D `particles` mesh axis over which
+every population axis in the framework — GP MLE restarts, HMC chains,
+CMA-ES/MIES chains, acquisition candidates, SMC particles — is sharded with
+`NamedSharding`; XLA inserts the collectives (all-reduce argmax/argmin) at
+the reduction points, through NCCL on GPUs. One axis is enough: the cards
+of a GPU host are joined all to all by NVLink, so no device order is
+closer than another.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ annealed over a log-spaced ladder down to `tol / 8`, Metropolis-Hastings
 moves per variable type (Gaussian for reals, double-geometric for integers,
 uniform level resampling for categoricals).
 
-TPU-first design difference: the reference mutates and accepts one particle
+Design difference: the reference mutates and accepts one particle
 coordinate at a time in Python loops; here every MH sweep proposes and
 accepts across the *whole particle population at once* (vectorized accept
 mask). User constraint callables are black-box per-point functions, so they

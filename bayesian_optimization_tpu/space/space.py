@@ -9,7 +9,7 @@ sampling via SCMC + rejection, `round`, `to_linear_scale`, dict/JSON codecs
 (type codes r/i/o/c/s/b), condition trees and
 `get_unconditional_subspace`.
 
-TPU-first design differences:
+Design differences:
 - RNG is an explicit per-space `numpy.random.Generator`; the reference's
   global `np.random.seed` side effect (ref: search_space.py:129-134) is not
   reproduced.

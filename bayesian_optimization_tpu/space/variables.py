@@ -7,7 +7,7 @@ set), plus conditional activation strings
 (ref: bayes_optim/search_space/variable.py:73-355) — implemented fresh.
 
 Design difference from the reference: every variable knows how to *encode*
-itself into the fixed-width continuous unit cube used by the TPU compute path
+itself into the fixed-width continuous unit cube used by the compiled compute path
 (see space/encoding.py). Sampling never mutates global RNG state; the
 reference's `np.random.seed` side effects (ref: _base.py:150-155) are
 deliberately not reproduced.

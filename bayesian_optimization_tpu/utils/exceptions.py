@@ -1,4 +1,4 @@
-"""Exception hierarchy for the TPU-native Bayesian-optimization framework.
+"""Exception hierarchy for the Bayesian-optimization framework.
 
 Capability parity with the reference's exception set
 (ref: bayes_optim/utils/exception.py:4-78) — same names so users can port

@@ -107,7 +107,7 @@ class COCOExperimentLogger:
         datapath: str,
         fun_id: int,
         dim: int,
-        alg_id: str = "bo-tpu",
+        alg_id: str = "bo-jax",
         comments: str = "",
         precision: float = 1e-8,
     ):

@@ -3,15 +3,18 @@
 Capability analog of the reference's fgeneric logger and runner scripts
 (ref: benchmark/fgeneric.py:44-60 — .dat/.tdat regret traces triggered per
 Delta-f decade; benchmark/run_sequential.py:36-130; run_mpi.py:86-116 MPI
-rank fan-out). The multi-host fan-out here keys off `jax.process_index` /
-env vars instead of mpi4py: each process takes every k-th (fid, instance)
-task — the same embarrassingly-parallel split the reference does with MPI
-ranks.
+rank fan-out). The fan-out here keys off the BO_RANK / BO_WORLD env vars
+or `jax.process_index` instead of mpi4py: each process takes every k-th
+(fid, instance) task — the same embarrassingly-parallel split the
+reference does with MPI ranks. The env-var fan-out runs on one host, where
+each rank gets a GPU of its own, chosen before JAX starts.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -143,18 +146,48 @@ def run_bo_on_problem(
     }
 
 
-def _my_shard() -> Tuple[int, int]:
-    """(process_index, process_count) for multi-host fan-out."""
-    try:
-        import jax
+def _local_cards() -> List[str]:
+    """IDs of this host's GPUs as CUDA_VISIBLE_DEVICES names them; [] on a
+    host without NVIDIA GPUs."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return [c for c in visible.split(",") if c.strip()]
+    if shutil.which("nvidia-smi") is None:
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, check=False
+    ).stdout
+    return [str(i) for i, line in enumerate(l for l in out.splitlines() if l.startswith("GPU "))]
 
-        if jax.process_count() > 1:
-            return jax.process_index(), jax.process_count()
-    except Exception:
-        pass
-    rank = int(os.environ.get("BO_TPU_RANK", 0))
-    size = int(os.environ.get("BO_TPU_WORLD", 1))
-    return rank, size
+
+def bind_rank_to_card(rank: int) -> Optional[str]:
+    """Give this rank its own card by narrowing CUDA_VISIBLE_DEVICES; must
+    run before JAX starts, since a JAX process reserves most of the memory
+    of every card it sees. Returns the card's ID, or None on a host without
+    GPUs (ranks then share the CPU). More ranks than cards is an error."""
+    cards = _local_cards()
+    if not cards:
+        return None
+    if not 0 <= rank < len(cards):
+        raise RuntimeError(
+            f"rank {rank} has no card: this host has {len(cards)} GPU(s), "
+            "and each rank needs one of its own"
+        )
+    os.environ["CUDA_VISIBLE_DEVICES"] = cards[rank]
+    return cards[rank]
+
+
+def _my_shard() -> Tuple[int, int]:
+    """(rank, world) for the fan-out: the BO_RANK / BO_WORLD env vars
+    (binding the rank to its card), else jax.distributed's process index."""
+    world = int(os.environ.get("BO_WORLD", 1))
+    if world > 1:
+        rank = int(os.environ.get("BO_RANK", 0))
+        bind_rank_to_card(rank)
+        return rank, world
+    import jax
+
+    return jax.process_index(), jax.process_count()
 
 
 def run_suite(
@@ -190,7 +223,7 @@ def run_suite(
             if (fid, dim) not in loggers:
                 loggers[(fid, dim)] = COCOExperimentLogger(
                     coco_dir, fid, dim,
-                    alg_id="bo-tpu", comments="max_FEs=%d seed=%d" % (max_FEs, seed),
+                    alg_id="bo-jax", comments="max_FEs=%d seed=%d" % (max_FEs, seed),
                 )
             coco_logger = loggers[(fid, dim)]
         rec = run_bo_on_problem(

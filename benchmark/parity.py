@@ -1,4 +1,4 @@
-"""Regret-parity runner: the five pinned BASELINE.json configs executed on
+"""Regret-parity runner: the five pinned configs of BASELINE.md executed on
 BOTH frameworks (this one and the reference at /root/reference via the
 dependency shims), same seeds, recording best-found values and wall-clock.
 

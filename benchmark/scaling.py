@@ -4,7 +4,7 @@ The reference's only multi-node story is an embarrassingly-parallel MPI
 fan-out of independent BO runs (ref: benchmark/run_mpi.py:87-116). This
 framework instead shards *population axes inside one optimization* — CMA-ES
 acquisition chains and GP MLE restarts — over a `jax.sharding.Mesh` with a
-'particles' axis, and lets XLA insert the ICI collectives at the best-of-
+'particles' axis, and lets XLA insert the collectives at the best-of-
 population reductions.
 
 This script measures strong scaling (fixed total population, more devices)
@@ -12,8 +12,8 @@ and weak scaling (fixed per-device population) of the fused CMA acquisition
 argmax on a simulated multi-device mesh (host CPU split into 8 XLA devices —
 the same mechanism the test suite and `__graft_entry__.dryrun_multichip`
 use). On CPU the devices are host threads, so efficiencies reflect the
-sharded program's structure, not ICI bandwidth; on a real multi-chip slice
-the same program runs with the mesh over chips.
+sharded program's structure, not interconnect bandwidth; on a multi-GPU
+host the same program runs with the mesh over the cards.
 
 Usage:  python benchmark/scaling.py    (writes markdown to stdout)
 """

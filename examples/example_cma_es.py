@@ -1,5 +1,5 @@
 """Standalone (1+1)-Cholesky-CMA-ES on a 30-D sphere (capability analog of
-ref example/example_CMA_ES.py). The TPU-native engine runs a batch of
+ref example/example_CMA_ES.py). This engine runs a batch of
 vectorized chains in one XLA program; the host objective is called once per
 generation on the whole batch."""
 import os as _os, sys as _sys

@@ -2,7 +2,7 @@
 fused acquisition argmax.
 
 Mirrors the reference's constrained usage (ref: unittest/test_constraint.py:
-29-83): `BO(eq_fun=h)` / `BO(ineq_fun=g)`. TPU-native difference: the user's
+29-83): `BO(eq_fun=h)` / `BO(ineq_fun=g)`. Difference: the user's
 constraint callables are traced into the jitted argmax program when possible
 (exact autodiff penalty gradients for the BFGS engine; see
 optim/constraints.ConstraintProgram) and the DoE comes from the constrained

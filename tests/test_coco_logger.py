@@ -81,9 +81,9 @@ def test_harness_integration(tmp_path):
     recs = run_suite(fids=[1], dims=(2,), instances=(1,), max_FEs=12,
                      seed=3, coco_dir=str(tmp_path))
     assert len(recs) == 1
-    info = os.path.join(str(tmp_path), "bo-tpu_f1.info")
+    info = os.path.join(str(tmp_path), "bo-jax_f1.info")
     assert os.path.exists(info)
-    dat = os.path.join(str(tmp_path), "data_f1", "bo-tpu_f1_DIM2.dat")
+    dat = os.path.join(str(tmp_path), "data_f1", "bo-jax_f1_DIM2.dat")
     rows = [l for l in open(dat) if not l.startswith("%")]
     assert rows, "at least one improvement line"
     assert ":12|" in open(info).read()

@@ -75,8 +75,8 @@ def test_two_process_initialize_and_collective(tmp_path):
     # 1 virtual CPU device per process keeps the collective honestly
     # cross-process instead of intra-process
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    env.pop("BO_TPU_WORLD", None)
-    env.pop("BO_TPU_RANK", None)
+    env.pop("BO_WORLD", None)
+    env.pop("BO_RANK", None)
     procs = [
         subprocess.Popen(
             [sys.executable, str(script), addr, str(rank)],
@@ -110,13 +110,14 @@ def test_harness_shard_split_partitions_tasks(monkeypatch):
     (the run_mpi.py:87-116 contract)."""
     from benchmark import harness
 
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # a host without cards
     fids, dims, instances = [1, 2, 8], (2, 5), (1, 2)
     tasks = [(f, d, i) for d in dims for f in fids for i in instances]
     world = 3
     seen = []
     for rank in range(world):
-        monkeypatch.setenv("BO_TPU_RANK", str(rank))
-        monkeypatch.setenv("BO_TPU_WORLD", str(world))
+        monkeypatch.setenv("BO_RANK", str(rank))
+        monkeypatch.setenv("BO_WORLD", str(world))
         got_rank, got_world = harness._my_shard()
         assert (got_rank, got_world) == (rank, world)
         mine = [t for i, t in enumerate(tasks) if i % got_world == got_rank]
@@ -130,5 +131,29 @@ def test_harness_shard_split_partitions_tasks(monkeypatch):
 def test_initialize_noop_single_process(monkeypatch):
     from bayesian_optimization_tpu.parallel import distributed
 
-    monkeypatch.delenv("BO_TPU_WORLD", raising=False)
+    monkeypatch.delenv("BO_WORLD", raising=False)
     assert distributed.initialize() is False
+
+
+def test_harness_binds_each_rank_to_its_card(monkeypatch):
+    """Each rank narrows CUDA_VISIBLE_DEVICES to one card of its own (before
+    JAX starts), counting the cards the parent made visible."""
+    from benchmark import harness
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3,5,6,7")
+    assert harness.bind_rank_to_card(1) == "5"
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "5"
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert harness.bind_rank_to_card(3) is None  # no GPUs: ranks share the CPU
+
+
+def test_harness_refuses_more_ranks_than_cards(monkeypatch):
+    from benchmark import harness
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1")
+    with pytest.raises(RuntimeError, match="has 2 GPU"):
+        harness.bind_rank_to_card(2)
+    monkeypatch.setenv("BO_WORLD", "3")
+    monkeypatch.setenv("BO_RANK", "2")
+    with pytest.raises(RuntimeError, match="rank 2 has no card"):
+        harness._my_shard()

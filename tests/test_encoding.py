@@ -1,5 +1,5 @@
 """Tests for the masked continuous embedding (no reference counterpart —
-this layer is the TPU-first addition that makes everything XLA-compilable)."""
+this layer is the array-first addition that makes everything XLA-compilable)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -450,3 +450,36 @@ def test_gp_cma_mle_path():
         # CMA's optimum NLL within a few nats of the gradient ladder's
         # (|nll| here is O(10-100); 5.0 nats = same basin quality)
         assert nlls["CMA"] <= nlls["BFGS"] + 5.0, nlls
+
+
+@pytest.mark.parametrize("backend, want", [("cpu", ["lower", "compile"]), ("gpu", ["call"])])
+def test_precompile_warms_by_executing_off_cpu(monkeypatch, backend, want):
+    """precompile AOT-compiles on the CPU backend (a throwaway run would cost
+    a full fit there) and executes the ladder on an accelerator, which lands
+    the executable in the jit cache fit() consults."""
+    from bayesian_optimization_tpu.models import gp as gp_mod
+
+    calls = []
+
+    class FakeKernel:
+        def __call__(self, *args):
+            calls.append("call")
+            return jnp.zeros(())
+
+        def lower(self, *args):
+            calls.append("lower")
+
+            class Lowered:
+                def compile(self):
+                    calls.append("compile")
+
+            return Lowered()
+
+    monkeypatch.setattr(gp_mod, "_ladder_kernel", FakeKernel())
+    monkeypatch.setattr(gp_mod.jax, "default_backend", lambda: backend)
+    gp = GaussianProcess(
+        mean=constant_trend(2), corr="matern", thetaL=1e-2 * np.ones(2),
+        thetaU=1e2 * np.ones(2), random_start=4, random_state=0,
+    )
+    gp.precompile(100, 2)
+    assert calls == want

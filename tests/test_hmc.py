@@ -1,4 +1,4 @@
-"""HMC/VI hyperparameter-posterior inference (the BASELINE.json north star;
+"""HMC/VI hyperparameter-posterior inference (the project's north star;
 no reference counterpart — its fit is point-estimate L-BFGS)."""
 import jax
 import jax.numpy as jnp

@@ -98,60 +98,21 @@ def test_min_pivot_flags_indefinite():
     assert float(piv2) <= 0.0
 
 
-def test_factor_hybrid_matches_numpy():
-    """The superpanel hybrid factorization (the n>1024 cliff fix) must
-    reproduce the Cholesky factor, the blocked Dinv layout, and the solve
-    exactly like _factor. Exercised at super_block=256 / n=512 in Pallas
-    interpret mode (the real path runs super_block=1024 on TPU)."""
-    from bayesian_optimization_tpu.ops.linalg import _factor_hybrid
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_whiten_matches_float64_at_nugget_1e6(n):
+    """whiten's value and gradient on a Matern-5/2 GP correlation matrix at
+    nugget 1e-6 against float64 numpy, at the tolerances above."""
+    from benchmark import reference as ref
 
-    n, sb = 512, 256
-    R = _spd(n, seed=3, cond="kernel")
-    L_ref = np.linalg.cholesky(np.asarray(R, np.float64))
-    L, Dinv, piv = _factor_hybrid(jnp.asarray(R), super_block=sb, interpret=True)
-    rel = np.abs(np.asarray(L, np.float64) - L_ref).max() / np.abs(L_ref).max()
-    assert rel < 1e-3, rel
-    assert float(piv) > 0.0
-    assert Dinv.shape == (n // 128, 128, 128)
-    # Dinv blocks really are the inverses of L's diagonal blocks
-    for k in range(n // 128):
-        blk = np.asarray(L)[k * 128:(k + 1) * 128, k * 128:(k + 1) * 128]
-        assert np.abs(np.asarray(Dinv[k]) @ blk - np.eye(128)).max() < 1e-3
-    # blocked solve built on the hybrid factor matches scipy
-    B = np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32)
-    W = tri_solve_lower(L, Dinv, jnp.asarray(B))
-    import scipy.linalg as sla
+    X = np.random.default_rng(n).uniform(0.0, 1.0, (n, 5))
+    R = ref.kernel("matern52", 10.0, X) + 1e-6 * np.eye(n)
+    B = np.random.default_rng(1).standard_normal((n, 2))
 
-    W_ref = sla.solve_triangular(np.asarray(L, np.float64), B, lower=True)
-    assert np.abs(np.asarray(W, np.float64) - W_ref).max() < 1e-3
+    def f(R, B):
+        d, W, _ = whiten(R, B)
+        return jnp.sum(jnp.log(d)) + jnp.sum(W**2)
 
-
-def test_super_solves_match_blocked():
-    """tri_solve_{lower,upper_t}_super (explicit superpanel inverses, the
-    round-5 backward hybrid) agree with the blocked reference solves."""
-    import jax.numpy as jnp
-
-    from bayesian_optimization_tpu.ops.linalg import (
-        _factor, _super_inv, tri_solve_lower, tri_solve_lower_super,
-        tri_solve_upper_t, tri_solve_upper_t_super,
-    )
-
-    rng = np.random.default_rng(0)
-    n, S = 512, 128  # 4 superpanels of 128 so the test stays CPU-sized
-    A = rng.standard_normal((n, n)).astype(np.float32)
-    R = A @ A.T / n + np.eye(n, dtype=np.float32)
-    B = rng.standard_normal((n, 7)).astype(np.float32)
-    L, Dinv, piv = _factor(jnp.asarray(R))
-    Dsup = _super_inv(L, Dinv, super_block=S)
-    X1 = tri_solve_lower(L, Dinv, jnp.asarray(B))
-    X1s = tri_solve_lower_super(L, Dsup, jnp.asarray(B), super_block=S)
-    assert np.allclose(np.asarray(X1), np.asarray(X1s), atol=2e-4), np.abs(
-        np.asarray(X1) - np.asarray(X1s)
-    ).max()
-    X2 = tri_solve_upper_t(L, Dinv, jnp.asarray(B))
-    X2s = tri_solve_upper_t_super(L, Dsup, jnp.asarray(B), super_block=S)
-    assert np.allclose(np.asarray(X2), np.asarray(X2s), atol=2e-4)
-    # single-superpanel degenerate case (ns == 1)
-    Dsup1 = _super_inv(L, Dinv, super_block=n)
-    X3s = tri_solve_lower_super(L, Dsup1, jnp.asarray(B), super_block=n)
-    assert np.allclose(np.asarray(X1), np.asarray(X3s), atol=2e-4)
+    v, g = jax.jit(jax.value_and_grad(f))(jnp.asarray(R, jnp.float32), jnp.asarray(B, jnp.float32))
+    ve, ge = ref.relative_errors(v, g, *ref.whiten_value_grad(R, B))
+    assert ve < 1e-2, ve
+    assert ge < 1e-3, ge

@@ -120,3 +120,17 @@ def test_sharded_cma_argmax_loop_has_no_collectives():
     # sanity: the lowering was actually partitioned — the final reduce must
     # exist, otherwise the assertion above passes vacuously
     assert total >= 1 and total == in_entry_count, (total, in_entry_count)
+
+
+def test_dryrun_multichip_raises_instead_of_falling_back(monkeypatch):
+    """Too few devices on the default backend is an error: the dry run never
+    swaps in CPU devices behind the caller's back."""
+    import __graft_entry__ as ge
+
+    class FakeGPU:
+        platform = "gpu"
+
+    real = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda backend=None: [FakeGPU()] if backend is None else real(backend))
+    with pytest.raises(RuntimeError, match="only 1 device"):
+        ge.dryrun_multichip(4)

@@ -92,7 +92,7 @@ def test_likelihood_value_matches_reference(ref_gpr):
     ref._check_data(X, y.reshape(-1, 1))  # sets internal state for the LL call
 
     # hyperparameters chosen with cond(R) in [7e2, 3e4]: the reference runs
-    # f64 LAPACK while our TPU-native path is f32, so agreement degrades as
+    # f64 LAPACK while our default path is f32, so agreement degrades as
     # cond(R)*eps_f32 — at these conds the gap stays well under 1 nat (at
     # cond 1e6, e.g. theta=[0.5, 2], BOTH implementations' values drift by
     # tens of nats from exact arithmetic, which is inherent to f32, not a

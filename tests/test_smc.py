@@ -1,4 +1,4 @@
-"""SMC-resampling population argmax (optim/smc.py — the BASELINE.json
+"""SMC-resampling population argmax (optim/smc.py — the project's
 north-star particle loop; VERDICT round-3 item 9)."""
 import jax
 import jax.numpy as jnp
